@@ -50,15 +50,7 @@ def main():
     ap.add_argument("--scene", default="small",
                     choices=["small", "medium"],
                     help="medium = the 46-sphere scene: fit ALL spheres' "
-                         "albedos (138 parameters) at once; the staged "
-                         "albedos+centers fit at full resolution lives in "
-                         "tools/medium_fit_probe.py")
-    ap.add_argument("--engine", default="auto",
-                    choices=["auto", "pipeline", "mega"],
-                    help="gradient engine (grad/inverse._pick_engine): "
-                         "auto = the fused megakernel engine on TPU "
-                         "(hard AND soft — the in-kernel estimator + fused "
-                         "Pallas backward), the XLA pipeline on CPU")
+                         "albedos (138 parameters) at once")
     args = ap.parse_args()
 
     import jax
@@ -67,19 +59,18 @@ def main():
 
     import dataclasses
     import numpy as np
-    from rays1bench_tpu.core.config import RenderConfig
-    from rays1bench_tpu.grad.inverse import (InverseConfig, fit_scene,
-                                             render_for_loss)
-    from rays1bench_tpu.scene.builders import create_small_scene
+    from rays1bench.core.config import RenderConfig
+    from rays1bench.grad.inverse import (InverseConfig, fit_scene,
+                                         render_for_loss)
+    from rays1bench.scene.builders import create_small_scene
 
     # BASELINE config 4: small scene, 200x100, 4 spp, max-depth 10.
     cfg = RenderConfig(width=200, height=100, spp=4, max_bounces=10,
                        early_exit=False, ray_chunk=131072)
     # pad_multiple=8: the differentiable XLA path sweeps every SoA row
-    # densely, so don't carry 120 placeholder rows through the VJP
-    # (2x grad-step speed, tools/grad_bench.py).
+    # densely, so don't carry 120 placeholder rows through the VJP.
     if args.scene == "medium":
-        from rays1bench_tpu.scene.builders import create_medium_scene
+        from rays1bench.scene.builders import create_medium_scene
         scene = create_medium_scene(cfg.aspect, pad_multiple=8)
     else:
         scene = create_small_scene(cfg.aspect, pad_multiple=8)
@@ -88,10 +79,9 @@ def main():
     if args.scene == "medium":
         # Multi-sphere fit: every real sphere's albedo, simultaneously.
         assert not (args.fit_geometry or args.fit_camera), \
-            "--scene medium fits albedos (see tools/medium_fit_probe.py)"
+            "--scene medium fits albedos only"
         n = scene.n_real
-        target = render_for_loss(scene.spheres, camera, cfg,
-                                 engine=args.engine)
+        target = render_for_loss(scene.spheres, camera, cfg)
         rng = np.random.RandomState(11)
         fac = 0.6 + 0.9 * rng.rand(3, scene.spheres.albedo_x.shape[0])
         fac[:, n:] = 1.0
@@ -105,7 +95,7 @@ def main():
         inv = InverseConfig(learning_rate=args.lr or 1e-2, steps=args.steps,
                             optimize=names)
         fitted, losses = fit_scene(perturbed, camera, target, cfg, inv,
-                                   verbose=True, engine=args.engine,
+                                   verbose=True,
                                    checkpoint_path=args.checkpoint or None)
         print(f"loss {losses[0]:.3e} -> {losses[-1]:.3e}")
         for nm in names:
@@ -118,7 +108,7 @@ def main():
         return
 
     if args.fit_camera:
-        from rays1bench_tpu.grad.inverse import fit_camera
+        from rays1bench.grad.inverse import fit_camera
         target = render_for_loss(scene.spheres, camera, cfg)
         spec = scene.camera
         pert = dataclasses.replace(
@@ -128,7 +118,7 @@ def main():
         fitted, losses = fit_camera(
             scene.spheres, pert, target, cfg,
             learning_rate=args.lr or 5e-3, steps=max(args.steps, 120),
-            optimize=("lookfrom",), engine=args.engine, verbose=True)
+            optimize=("lookfrom",), verbose=True)
         print(f"loss {losses[0]:.3e} -> {losses[-1]:.3e}")
         e0 = np.abs(np.asarray(pert.lookfrom) - np.asarray(spec.lookfrom))
         e1 = np.abs(np.asarray(fitted["lookfrom"])
@@ -141,8 +131,7 @@ def main():
         # Soft-silhouette geometry fit: move + resize the diffuse sphere,
         # recover it. The relaxation width (world units, ~1% of the small
         # spheres' radius) and the lr=2e-3 rate are calibrated in
-        # tests/test_grad.py::test_soft_silhouette_recovers_geometry and
-        # tools/soft_silhouette_calibration.py.
+        # tests/test_grad.py::test_soft_silhouette_recovers_geometry.
         cfg = cfg.replace(soft_silhouette=0.005)
         target = render_for_loss(scene.spheres, camera, cfg)
         perturbed = dataclasses.replace(
@@ -176,8 +165,7 @@ def main():
 
     fitted, losses = fit_scene(perturbed, camera, target, cfg, inv,
                                verbose=True,
-                               checkpoint_path=args.checkpoint or None,
-                               engine=args.engine)
+                               checkpoint_path=args.checkpoint or None)
     print(f"loss {losses[0]:.3e} -> {losses[-1]:.3e} "
           f"({losses[0] / max(losses[-1], 1e-12):.0f}x reduction)")
     for n in names:

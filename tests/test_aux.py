@@ -9,12 +9,12 @@ import jax.numpy as jnp
 import optax
 import pytest
 
-from rays1bench_tpu.core.config import RenderConfig
-from rays1bench_tpu.utils.metrics import (ScalingPoint, mrays_per_sec,
-                                          scaling_efficiency)
-from rays1bench_tpu.utils import profiling
-from rays1bench_tpu.grad import checkpoint as ckpt
-from rays1bench_tpu.parallel.multihost import render_with_retry
+from rays1bench.core.config import RenderConfig
+from rays1bench.utils.metrics import (ScalingPoint, mrays_per_sec,
+                                      scaling_efficiency)
+from rays1bench.utils import profiling
+from rays1bench.grad import checkpoint as ckpt
+from rays1bench.parallel.multihost import render_with_retry
 
 
 def test_mrays_metric_definition():
@@ -54,10 +54,10 @@ def test_checkpoint_roundtrip(tmp_path):
 
 def test_fit_scene_resumes(tmp_path):
     """fit_scene picks up where the checkpoint left off."""
-    from rays1bench_tpu.grad.inverse import InverseConfig, fit_scene
-    from rays1bench_tpu.render.camera import CameraSpec
-    from rays1bench_tpu.scene.soa_spheres import SphereSOABuilder
-    from rays1bench_tpu.scene.spheres import METAL
+    from rays1bench.grad.inverse import InverseConfig, fit_scene
+    from rays1bench.render.camera import CameraSpec
+    from rays1bench.scene.soa_spheres import SphereSOABuilder
+    from rays1bench.scene.spheres import METAL
 
     cfg = RenderConfig(width=32, height=16, spp=1, max_bounces=2,
                        early_exit=False, seed=5)
@@ -102,9 +102,9 @@ def test_render_image_with_retry_recovers_bit_exactly(tmp_path):
     RNG), counts exactly the rays of render_image(), and matches its image
     to the same 1-ULP bound as any other chunk-split (XLA may fuse a
     2048-wide chunk differently than a 5120-wide one)."""
-    from rays1bench_tpu.parallel.multihost import render_image_with_retry
-    from rays1bench_tpu.render.pipeline import render_image
-    from rays1bench_tpu.scene.builders import create_small_scene
+    from rays1bench.parallel.multihost import render_image_with_retry
+    from rays1bench.render.pipeline import render_image
+    from rays1bench.scene.builders import create_small_scene
 
     cfg = RenderConfig(width=64, height=40, spp=2, max_bounces=6,
                        ray_chunk=8192)
@@ -157,13 +157,12 @@ def test_profiling_hooks_smoke(tmp_path):
 
 def test_fit_scene_scan_steps_equivalent():
     """fit_scene(scan_steps=N) — N Adam steps chained per dispatch via
-    lax.scan (the on-device training loop; ~29 ms dispatch round trip
-    amortized on the real TPU) — produces the same per-step losses and the
-    same fitted parameters as the per-step loop."""
+    lax.scan (the on-device training loop) — produces the same per-step
+    losses and the same fitted parameters as the per-step loop."""
     import dataclasses
-    from rays1bench_tpu.grad.inverse import (InverseConfig, fit_scene,
-                                             render_for_loss)
-    from rays1bench_tpu.scene.builders import create_small_scene
+    from rays1bench.grad.inverse import (InverseConfig, fit_scene,
+                                         render_for_loss)
+    from rays1bench.scene.builders import create_small_scene
 
     cfg = RenderConfig(width=48, height=24, spp=1, max_bounces=2,
                        early_exit=False, ray_chunk=4096)

@@ -13,17 +13,17 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from rays1bench_tpu.core.config import RenderConfig
-from rays1bench_tpu.grad.fd import fd_check
-from rays1bench_tpu.grad.inverse import (
+from rays1bench.core.config import RenderConfig
+from rays1bench.grad.fd import fd_check
+from rays1bench.grad.inverse import (
     InverseConfig, fit_scene, image_loss, params_of, render_for_loss,
     with_params,
 )
-from rays1bench_tpu.render.camera import CameraSpec
-from rays1bench_tpu.scene.builders import (create_medium_scene,
-                                           create_small_scene)
-from rays1bench_tpu.scene.soa_spheres import SphereSOABuilder
-from rays1bench_tpu.scene.spheres import LAMBERTIAN, METAL, prepare
+from rays1bench.render.camera import CameraSpec
+from rays1bench.scene.builders import (create_medium_scene,
+                                       create_small_scene)
+from rays1bench.scene.soa_spheres import SphereSOABuilder
+from rays1bench.scene.spheres import LAMBERTIAN, METAL, prepare
 
 CFG = RenderConfig(width=48, height=32, spp=2, max_bounces=2, ray_chunk=8192,
                    early_exit=False, seed=5)
@@ -167,7 +167,7 @@ def test_soft_silhouette_gradient_unbiased():
     the one-sided leak-to-sky relaxation it replaced measured analytic/FD at
     only 0.37-0.69).
 
-    Measurement design (tools/soft_silhouette_calibration.py): both sides are
+    Measurement design: both sides are
     Monte-Carlo, so everything is seed-averaged — the renderer here takes the
     seed as a TRACED argument so all seeds share one compile — and the
     functional is LINEAR in the image (frozen weights), so seed-averaged FD
@@ -183,8 +183,8 @@ def test_soft_silhouette_gradient_unbiased():
     r_hard 1.12/1.13 (this config's own FD-noise realization)."""
     W, H, SPP, MB, NSEEDS = 96, 54, 8, 4, 6
     SOFT, FD = 0.005, 0.01
-    from rays1bench_tpu.core import rng as rng_mod
-    from rays1bench_tpu.render.integrator import trace
+    from rays1bench.core import rng as rng_mod
+    from rays1bench.render.integrator import trace
 
     scene = create_small_scene(16 / 9, pad_multiple=8)
     camera = scene.camera.build()
@@ -291,178 +291,12 @@ def test_grad_zero_for_invisible_param():
     assert abs(float(np.asarray(g["albedo_x"])[0])) > 0
 
 
-def test_mega_grad_matches_pipeline():
-    """Megakernel-forward gradients (grad/mega.py): the fused forward's
-    per-bounce hit topology replayed through render_image(topology=...) is
-    BITWISE the XLA pipeline's image in interpreter mode (identical math
-    library, full-precision albedos in the replay), and value_and_grad
-    through render_image_mega matches the pipeline gradient to ~0.2%
-    relative — the residual is the megakernel primal's documented 8-bit
-    albedo quantization entering the loss cotangent (megakernel docstring),
-    not a topology or replay error."""
-    from rays1bench_tpu.grad.mega import render_image_mega
-    from rays1bench_tpu.kernels.pipeline import render_image_pallas_topology
-    from rays1bench_tpu.render.pipeline import render_image
-
-    cfg = RenderConfig(width=64, height=32, spp=2, max_bounces=5, seed=7,
-                       early_exit=False, ray_chunk=2048)  # 2 chunks
-    scene = create_small_scene(cfg.aspect, pad_multiple=8)
-    camera = scene.camera.build()
-
-    # max_bounces 3: with the small scene's sync_every=3, bounce 3's
-    # batches overshoot to b = max_bounces + 1 — regression for the
-    # out-of-bounds topology write that clamped onto the last plane and
-    # clobbered depth-capped lanes' topology (megakernel._make_bounce).
-    # (The deeper mb=5 leg moved: test_fused_backward_matches_replay runs
-    # mb in (3, 5) through the same topology forward — one fewer suite
-    # compile of this size.)
-    c = cfg.replace(max_bounces=3)
-    img_3, n_3 = render_image(scene.spheres, camera, c)
-    _, n_m, topo = render_image_pallas_topology(scene.spheres, camera,
-                                                c, interpret=True)
-    assert int(n_m) == int(n_3)
-    img_r, n_r = render_image(scene.spheres, camera, c, topology=topo)
-    assert int(n_r) == int(n_3)
-    np.testing.assert_array_equal(np.asarray(img_r), np.asarray(img_3))
-    img_x, _ = render_image(scene.spheres, camera, cfg)  # mb=5 target
-
-    target = img_x * 0.9  # nonzero residual everywhere
-    names = ("center_x", "radius", "albedo_x")
-    params0 = params_of(scene.spheres, names)
-    params0["center_x"] = params0["center_x"].at[0].add(0.04)
-    params0["radius"] = params0["radius"].at[0].add(-0.02)
-
-    def loss_mega(p):
-        img, _ = render_image_mega(with_params(scene.spheres, p), camera,
-                                   cfg, interpret=True)
-        return jnp.mean((img - target) ** 2)
-
-    def loss_pipe(p):
-        img, _ = render_image(with_params(scene.spheres, p), camera, cfg)
-        return jnp.mean((img - target) ** 2)
-
-    g_m = jax.grad(loss_mega)(params0)
-    g_p = jax.grad(loss_pipe)(params0)
-    for k in names:
-        a, b = np.asarray(g_m[k]), np.asarray(g_p[k])
-        rel = np.abs(a - b).max() / (np.abs(b).max() + 1e-12)
-        assert rel < 0.01, (k, rel, a[:3], b[:3])
-
-
-def test_fused_backward_matches_replay():
-    """The fused Pallas backward (kernels/mega_backward.py) computes the
-    same gradient as jax.vjp over the XLA topology replay — sphere columns
-    (including fuzz/ref_idx), the signed-radius chain, AND the camera — to
-    float tolerance in interpreter mode (identical math, different
-    accumulation order; the tiny residual also includes the replay path's
-    cotangent passing through the primal's 8-bit albedo image while the
-    fused path is albedo-exact end to end)."""
-    import dataclasses
-    from rays1bench_tpu.grad.mega import render_image_mega
-
-    cfg = RenderConfig(width=64, height=32, spp=2, seed=7, early_exit=False,
-                       ray_chunk=2048)
-    scene = create_small_scene(cfg.aspect, pad_multiple=8)
-    camera = scene.camera.build()
-
-    names = ("center_x", "center_y", "center_z", "radius",
-             "albedo_x", "albedo_y", "albedo_z", "fuzz", "ref_idx")
-    params0 = params_of(scene.spheres, names)
-    params0["center_x"] = params0["center_x"].at[0].add(0.04)
-    params0["radius"] = params0["radius"].at[0].add(-0.02)
-
-    # mb=3: with the small scene's sync_every=3 the topology forward
-    # overshoots past max_bounces (the out-of-bounds-write regression case);
-    # mb=5: deeper chain with glass bounces.
-    for mb in (3, 5):
-        c = cfg.replace(max_bounces=mb)
-
-        def loss(p, cam, fused):
-            img, _ = render_image_mega(with_params(scene.spheres, p), cam, c,
-                                       interpret=True, fused=fused)
-            return jnp.mean((img - 0.3) ** 2)
-
-        gp_f, gc_f = jax.grad(loss, argnums=(0, 1))(params0, camera, True)
-        gp_r, gc_r = jax.grad(loss, argnums=(0, 1))(params0, camera, False)
-        for k in names:
-            a, b = np.asarray(gp_f[k]), np.asarray(gp_r[k])
-            rel = np.abs(a - b).max() / (np.abs(b).max() + 1e-12)
-            assert rel < 2e-3, (mb, k, rel, a[:3], b[:3])
-            # Placeholder rows (5..7 after pad_multiple=8) get exactly 0.
-            assert np.abs(a[scene.n_real:]).max() == 0.0, (k, a)
-        for f in dataclasses.fields(camera):
-            a = np.asarray(getattr(gc_f, f.name))
-            b = np.asarray(getattr(gc_r, f.name))
-            rel = np.abs(a - b).max() / (np.abs(b).max() + 1e-12)
-            assert rel < 2e-3, (mb, f.name, rel, a, b)
-
-
-def test_fused_backward_blocked_matches_unrolled():
-    """The BLOCKED fused backward (> MAX_UNROLLED sphere rows: fori-loop
-    column lookup, per-bounce column checkpoints, sublane-packed
-    accumulators — kernels/mega_backward.py round 5) computes the same
-    gradients as the round-4 unrolled path to float noise. The pin is
-    CROSS-PADDING: the small scene at pad_multiple=72 (72 rows, blocked)
-    against the identical scene at pad_multiple=8 (8 rows, unrolled) — two
-    different kernels, two different accumulator schemes, same real
-    spheres, same rays. (The same experiment on the medium scene at pad
-    8/128 measured 1.7e-7 relative at mb=4; the small scene keeps the
-    unrolled side's Mosaic trace — and so this test — an order of
-    magnitude cheaper to compile.) This is the correctness pin for the
-    path that gives the LARGE scene (512 rows) production-rate
-    gradients."""
-    import dataclasses
-    from rays1bench_tpu.grad.mega import render_image_mega
-    from rays1bench_tpu.kernels.mega_backward import MAX_UNROLLED
-
-    cfg = RenderConfig(width=64, height=32, spp=2, seed=7, max_bounces=3,
-                       early_exit=False, ray_chunk=2048)
-    grads = {}
-    cams = {}
-    for pad in (8, 72):
-        scene = create_small_scene(cfg.aspect, pad_multiple=pad)
-        camera = scene.camera.build()
-        n_rows = scene.spheres.radius.shape[0]
-        assert (n_rows > MAX_UNROLLED) == (pad == 72)
-
-        names = ("center_x", "center_y", "center_z", "radius",
-                 "albedo_x", "albedo_y", "albedo_z", "fuzz", "ref_idx")
-        params0 = params_of(scene.spheres, names)
-        params0["center_x"] = params0["center_x"].at[1].add(0.04)
-        params0["radius"] = params0["radius"].at[2].add(-0.02)
-
-        def loss(p, cam, scene=scene):
-            img, _ = render_image_mega(with_params(scene.spheres, p), cam,
-                                       cfg, interpret=True, fused=True)
-            return jnp.mean((img - 0.3) ** 2)
-
-        gp, gc = jax.grad(loss, argnums=(0, 1))(params0, camera)
-        # Placeholder rows get exactly 0.
-        for k in names:
-            assert np.abs(np.asarray(gp[k])[scene.n_real:]).max() == 0.0, k
-        grads[pad] = {k: np.asarray(v)[:scene.n_real] for k, v in gp.items()}
-        cams[pad] = gc
-
-    for k, a in grads[72].items():
-        b = grads[8][k]
-        rel = np.abs(a - b).max() / (np.abs(b).max() + 1e-12)
-        assert rel < 1e-5, (k, rel, a[:3], b[:3])
-    for f in dataclasses.fields(cams[8]):
-        a = np.asarray(getattr(cams[72], f.name))
-        b = np.asarray(getattr(cams[8], f.name))
-        # atol floor: tiny-magnitude fields (lens_radius grad ~1e-6) carry
-        # ULP-level noise from the two kernels' differing vjp graphs.
-        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-9,
-                                   err_msg=f.name)
-
-
 def test_medium_scene_multi_sphere_albedo_fit():
     """Multi-sphere inverse rendering (round-4 verdict missing-item 2): all
     46 medium-scene spheres' albedos — 138 parameters at once — recover
     from a deterministic multiplicative perturbation by Adam through the
     fixed-topology gradient, while rows_by-masked center columns confine
-    updates to the named rows. (Center RECOVERY at production scale runs at
-    full resolution on TPU — tools/medium_fit_probe.py, records/grad — with
+    updates to the named rows. (Center RECOVERY needs full resolution with
     the soft band scaled to the pixel footprint; at this test's 96 px the
     calibrated band is 0.1 px and silhouette gradients vanish, measured.)
     Reference scene being fit: rayweek1.cpp:582-651."""
@@ -472,7 +306,7 @@ def test_medium_scene_multi_sphere_albedo_fit():
                        early_exit=False, ray_chunk=16384)
     scene = create_medium_scene(cfg.aspect, pad_multiple=8)
     camera = scene.camera.build()
-    target = render_for_loss(scene.spheres, camera, cfg, engine="pipeline")
+    target = render_for_loss(scene.spheres, camera, cfg)
     n = scene.n_real
     assert n == 46
 
@@ -490,8 +324,7 @@ def test_medium_scene_multi_sphere_albedo_fit():
         learning_rate=1e-2, steps=60,
         optimize=("albedo_x", "albedo_y", "albedo_z", "center_x"),
         rows_by=(("center_x", crows),))
-    fitted, losses = fit_scene(pert, camera, target, cfg, inv,
-                               engine="pipeline")
+    fitted, losses = fit_scene(pert, camera, target, cfg, inv)
     # measured: 6-7x loss reduction in 60 steps; the per-column error
     # assertions below are the real recovery check.
     assert losses[-1] < 0.25 * losses[0], (losses[0], losses[-1])
@@ -518,9 +351,9 @@ def test_camera_fit_recovers_lookfrom_vfov():
     gradients exist but were never used' item, closed. Reference camera:
     rayweek1.cpp:364-394."""
     import dataclasses
-    from rays1bench_tpu.grad.inverse import fit_camera
-    from rays1bench_tpu.render.camera import build_camera
-    from rays1bench_tpu.scene.builders import create_small_scene
+    from rays1bench.grad.inverse import fit_camera
+    from rays1bench.render.camera import build_camera
+    from rays1bench.scene.builders import create_small_scene
 
     cfg = RenderConfig(width=64, height=32, spp=2, max_bounces=3, seed=3,
                        early_exit=False, ray_chunk=4096)
@@ -554,68 +387,25 @@ def test_camera_fit_recovers_lookfrom_vfov():
 
 
 def test_pick_engine_routing(monkeypatch):
-    """engine="auto" routing (grad/inverse._pick_engine): on TPU every
-    fused-supported scene goes to the mega engine — single-chip AND sharded
-    (the round-4 verdict flagged auto+mesh falling back to the slow
-    pipeline), including >64-row scenes on the round-5 blocked path. CPU,
-    over-cap scenes, and VMEM-infeasible configs stay on the pipeline."""
-    import types
-    from rays1bench_tpu.grad import inverse
+    """The gradient path's index-sweep route (core/route.py): where the
+    config leaves it open, the Triton kernel on a GPU and XLA anywhere
+    else; an explicit setting wins either way; the forward renderer's
+    config is left alone."""
+    from rays1bench.core import route
+    from rays1bench.grad import inverse
 
-    cfg10 = RenderConfig(width=64, height=32, spp=2, max_bounces=10,
-                         early_exit=False)
-    cfg50 = cfg10.replace(max_bounces=50)
-    rows = lambda n: types.SimpleNamespace(radius=np.zeros(n))
-    mesh = object()
-    monkeypatch.setattr(inverse.jax, "default_backend", lambda: "tpu")
-    pick = inverse._pick_engine
-    assert pick(rows(8), cfg10, None, "auto") == "mega"
-    assert pick(rows(72), cfg10, None, "auto") == "mega"     # blocked
-    assert pick(rows(512), cfg10, None, "auto") == "mega"    # large scene
-    assert pick(rows(512), cfg10, mesh, "auto") == "mega"    # sharded auto
-    assert pick(rows(512), cfg50, None, "auto") == "mega"    # VMEM fits
-    assert pick(rows(1024), cfg50, None, "auto") == "pipeline"  # VMEM gate
-    assert pick(rows(4096), cfg10, None, "auto") == "pipeline"  # row cap
-    assert pick(rows(8), cfg10, None, "pipeline") == "pipeline"  # explicit
-    monkeypatch.setattr(inverse.jax, "default_backend", lambda: "cpu")
-    assert pick(rows(8), cfg10, None, "auto") == "pipeline"
-
-
-def test_fused_backward_blocked_replay_anchor():
-    """Blocked fused gradients stay anchored to the XLA topology replay.
-    Tolerance note: the fused-vs-replay residual is an ENGINE property that
-    grows with bounce depth (measured round 5: medium scene 5e-4 at mb=1,
-    1.3e-3 at mb=2, 2.4e-2 at mb=4 — IDENTICAL at 48 rows/unrolled and 128
-    rows/blocked, seed-stable, distributed over ~half the rows). The two
-    backwards differentiate the same fixed-topology chain compiled twice
-    (Mosaic kernel vs XLA graph); ULP differences — catastrophic
-    cancellation on the r=100 ground sphere's nb^2 - c is the worst term —
-    compound through the bounce chain and flip a few stochastic material
-    branches (schlick draws) at depth. Exact blocked-vs-unrolled
-    equivalence is pinned by test_fused_backward_blocked_matches_unrolled;
-    this anchor holds the shallow-depth regime where compiled-twice noise
-    is still small."""
-    from rays1bench_tpu.grad.mega import render_image_mega
-
-    cfg = RenderConfig(width=64, height=32, spp=2, seed=7, max_bounces=2,
-                       early_exit=False, ray_chunk=2048)
-    scene = create_medium_scene(cfg.aspect, pad_multiple=128)
-    camera = scene.camera.build()
-    names = ("center_x", "radius", "albedo_x")
-    params0 = params_of(scene.spheres, names)
-    params0["center_x"] = params0["center_x"].at[1].add(0.04)
-
-    def loss(p, fused):
-        img, _ = render_image_mega(with_params(scene.spheres, p), camera,
-                                   cfg, interpret=True, fused=fused)
-        return jnp.mean((img - 0.3) ** 2)
-
-    gf = jax.grad(lambda p: loss(p, True))(params0)
-    gr = jax.grad(lambda p: loss(p, False))(params0)
-    for k in names:
-        a, b = np.asarray(gf[k]), np.asarray(gr[k])
-        rel = np.abs(a - b).max() / (np.abs(b).max() + 1e-12)
-        assert rel < 5e-3, (k, rel, a[:3], b[:3])
+    cfg = RenderConfig(width=64, height=32, spp=2, max_bounces=10)
+    gpu = [type("D", (), {"platform": "gpu", "device_kind": "H100"})()]
+    monkeypatch.setattr(route.jax, "devices", lambda: gpu)
+    assert inverse._grad_cfg(cfg).pallas_intersect is True
+    assert inverse._grad_cfg(cfg).early_exit is False
+    assert inverse._grad_cfg(
+        cfg.replace(pallas_intersect=False)).pallas_intersect is False
+    monkeypatch.undo()
+    assert inverse._grad_cfg(cfg).pallas_intersect is False   # CPU: XLA
+    assert inverse._grad_cfg(
+        cfg.replace(pallas_intersect=True)).pallas_intersect is True
+    assert cfg.pallas_intersect is None
 
 
 def test_soft_grad_chunk_invariance():
@@ -637,59 +427,10 @@ def test_soft_grad_chunk_invariance():
     for chunk in (32768, 4096):  # one chunk vs 5 chunks (remat path)
         cfg = base.replace(ray_chunk=chunk)
         grads[chunk] = jax.grad(image_loss)(
-            params, scene.spheres, cam, target, cfg, None, "pipeline")
+            params, scene.spheres, cam, target, cfg)
     for k in params:
         a, b = np.asarray(grads[4096][k]), np.asarray(grads[32768][k])
         rel = np.abs(a - b).max() / (np.abs(b).max() + 1e-12)
         assert rel < 1e-6, (k, rel)
 
 
-def test_soft_mega_matches_pipeline():
-    """The in-kernel soft-silhouette estimator (megakernel._make_bounce
-    soft_eps: graze-promotion sweep + detached two-branch draw) matches the
-    XLA soft renderer with EXACT ray counts (identical promotion and branch
-    decisions) and to albedo-quantization tolerance in values; its gradient
-    — via the replay backward AND the fused Pallas backward at the recorded
-    promoted topology — matches the pipeline's soft gradient to the same
-    ~0.1% the primal images differ by."""
-    from rays1bench_tpu.grad.mega import render_image_mega
-    from rays1bench_tpu.kernels.pipeline import render_image_pallas_topology
-    from rays1bench_tpu.render.pipeline import render_image
-
-    cfg = RenderConfig(width=64, height=32, spp=2, max_bounces=4, seed=7,
-                       early_exit=False, ray_chunk=8192,
-                       soft_silhouette=0.005)
-    scene = create_small_scene(cfg.aspect, pad_multiple=8)
-    cam = scene.camera.build()
-
-    ref, n_ref = render_image(scene.spheres, cam, cfg)
-    img, n, topo = render_image_pallas_topology(scene.spheres, cam, cfg,
-                                                interpret=True)
-    assert int(n) == int(n_ref)  # same promotion + branch decisions
-    d = np.abs(np.asarray(img) - np.asarray(ref)).max()
-    assert d < 8e-3, d  # bounces x 0.5/255 albedo quantization
-    assert (np.asarray(topo) >= 0).any()
-
-    names = ("center_x", "center_y", "radius")
-    params = params_of(scene.spheres, names)
-    params["center_x"] = params["center_x"].at[0].add(0.04)
-    params["radius"] = params["radius"].at[0].add(-0.02)
-
-    def loss_mega(p, fused):
-        img, _ = render_image_mega(with_params(scene.spheres, p), cam, cfg,
-                                   interpret=True, fused=fused)
-        return jnp.mean((img - 0.3) ** 2)
-
-    def loss_pipe(p):
-        img, _ = render_image(with_params(scene.spheres, p), cam, cfg)
-        return jnp.mean((img - 0.3) ** 2)
-
-    gp = jax.grad(loss_pipe)(params)
-    gr = jax.grad(loss_mega)(params, False)
-    gf = jax.grad(loss_mega)(params, True)
-    for k in names:
-        p_, r_, f_ = np.asarray(gp[k]), np.asarray(gr[k]), np.asarray(gf[k])
-        rel_rp = np.abs(r_ - p_).max() / (np.abs(p_).max() + 1e-12)
-        rel_fr = np.abs(f_ - r_).max() / (np.abs(r_).max() + 1e-12)
-        assert rel_rp < 0.02, (k, rel_rp)
-        assert rel_fr < 2e-3, (k, rel_fr)

@@ -3,9 +3,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from rays1bench_tpu.render.integrator import trace, sky_color
-from rays1bench_tpu.scene.soa_spheres import SphereSOABuilder
-from rays1bench_tpu.scene.spheres import prepare, LAMBERTIAN, METAL
+from rays1bench.render.integrator import trace, sky_color
+from rays1bench.scene.soa_spheres import SphereSOABuilder
+from rays1bench.scene.spheres import prepare, LAMBERTIAN, METAL
 
 
 def _prep(spheres):

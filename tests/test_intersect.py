@@ -5,9 +5,9 @@ semantics (rayweek1.cpp:284-314)."""
 import numpy as np
 import jax.numpy as jnp
 
-from rays1bench_tpu.render.intersect import closest_hit
-from rays1bench_tpu.scene.soa_spheres import SphereSOABuilder
-from rays1bench_tpu.scene.spheres import prepare, LAMBERTIAN
+from rays1bench.render.intersect import closest_hit
+from rays1bench.scene.soa_spheres import SphereSOABuilder
+from rays1bench.scene.spheres import prepare, LAMBERTIAN
 
 T_MIN, T_MAX = 1e-3, 3.4e38
 

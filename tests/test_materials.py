@@ -6,9 +6,9 @@ import dataclasses
 import numpy as np
 import jax.numpy as jnp
 
-from rays1bench_tpu.render.intersect import HitRecord
-from rays1bench_tpu.render.materials import scatter
-from rays1bench_tpu.scene.spheres import LAMBERTIAN, METAL, DIELECTRIC
+from rays1bench.render.intersect import HitRecord
+from rays1bench.render.materials import scatter
+from rays1bench.scene.spheres import LAMBERTIAN, METAL, DIELECTRIC
 
 
 def _rec(n, mat, normal=(0, 0, 1), albedo=(0.5, 0.5, 0.5), fuzz=0.0, ref_idx=1.5):

@@ -4,9 +4,9 @@ golden-image comparison against the reference C++ renderer's TGA output."""
 import numpy as np
 import pytest
 
-from rays1bench_tpu.core.config import RenderConfig
-from rays1bench_tpu.render.pipeline import render_image, render_scene, to_srgb_u8
-from rays1bench_tpu.scene import builders, tga
+from rays1bench.core.config import RenderConfig
+from rays1bench.render.pipeline import render_image, render_scene, to_srgb_u8
+from rays1bench.scene import builders, tga
 
 # Small + fast: 80x60 like QUICKBENCH, modest bounces for CPU compile time.
 CFG = RenderConfig(width=80, height=60, spp=4, max_bounces=12, ray_chunk=8192)

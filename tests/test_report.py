@@ -3,8 +3,8 @@ record format, common.h:64-76 / update_readme.py)."""
 
 import os
 
-from rays1bench_tpu.bench import report
-from rays1bench_tpu.bench.report_cli import generate
+from rays1bench.bench import report
+from rays1bench.bench.report_cli import generate
 
 
 def test_parse_reference_format():
@@ -17,7 +17,7 @@ def test_parse_reference_format():
 
 
 def test_roundtrip_with_our_logger(tmp_path):
-    from rays1bench_tpu.bench.harness import BenchResult, log_results
+    from rays1bench.bench.harness import BenchResult, log_results
     rec = log_results("small", [BenchResult(2.0, 4_000_000),
                                 BenchResult(2.0, 4_000_000)],
                       version="v", directory=str(tmp_path))
@@ -35,12 +35,12 @@ def test_markdown_table_speedups():
 
 
 def test_generate_includes_reference_rows(tmp_path):
-    from rays1bench_tpu.bench.harness import BenchResult, log_results
-    log_results("large", [BenchResult(1.0, 100_000_000)], version="tpu",
+    from rays1bench.bench.harness import BenchResult, log_results
+    log_results("large", [BenchResult(1.0, 100_000_000)], version="jax",
                 directory=str(tmp_path))
     text = generate([str(tmp_path)], ["large"])
     assert "ref step13 (16 threads)" in text
-    assert "**tpu**" in text
+    assert "**jax**" in text
     # speedup vs ref step1 baseline: 100 / 0.431
     assert "## large" in text
 
@@ -61,9 +61,7 @@ def _regen_kwargs(root):
               os.path.join(root, "records")],
         scenes=["large", "medium", "small"],
         full_dirs=(os.path.join(root, "records", "full_ref_box"),
-                   os.path.join(root, "records", "full_oneshot"),
                    os.path.join(root, "records", "full")),
-        grad_path=os.path.join(root, "records", "grad", "steps.txt"),
         scaling_path=os.path.join(root, "records", "scaling", "sweep.txt"),
     )
 
@@ -73,7 +71,7 @@ def test_results_md_regenerates_byte_for_byte(tmp_path):
     reference's update_readme.py flow (update_readme.py:49-69). This pins
     that the committed file is exactly what the generator produces (the
     round-1 verdict flagged it as hand-written)."""
-    from rays1bench_tpu.bench.report_cli import generate_from_template
+    from rays1bench.bench.report_cli import generate_from_template
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     kw = _regen_kwargs(root)
     committed = open(os.path.join(root, "RESULTS.md")).read()
@@ -88,7 +86,7 @@ def test_readme_md_regenerates_byte_for_byte(tmp_path):
     """README.md's performance table regenerates from records/ +
     README_template.md — closing the round-2 verdict's 'hand-maintained
     duplicate data' gap (reference flow: update_readme.py:49-69)."""
-    from rays1bench_tpu.bench.report_cli import generate_from_template
+    from rays1bench.bench.report_cli import generate_from_template
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     kw = _regen_kwargs(root)
     committed = open(os.path.join(root, "README.md")).read()

@@ -9,7 +9,7 @@ with 24-bit resolution, plus uniform-in-ball and uniform-in-disk samplers
 import jax.numpy as jnp
 import numpy as np
 
-from rays1bench_tpu.core import rng
+from rays1bench.core import rng
 
 
 def _ids(n=20000):

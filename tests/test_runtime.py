@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from rays1bench_tpu.runtime import native
-from rays1bench_tpu.scene import tga
+from rays1bench.runtime import native
+from rays1bench.scene import tga
 
 
 @pytest.fixture(scope="module", autouse=True)

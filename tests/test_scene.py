@@ -3,9 +3,9 @@
 
 import numpy as np
 
-from rays1bench_tpu.scene import builders
-from rays1bench_tpu.scene.crt_colors import CRT_COLOR_BYTES
-from rays1bench_tpu.scene.spheres import LAMBERTIAN, METAL, DIELECTRIC
+from rays1bench.scene import builders
+from rays1bench.scene.crt_colors import CRT_COLOR_BYTES
+from rays1bench.scene.spheres import LAMBERTIAN, METAL, DIELECTRIC
 
 ASPECT = 1280.0 / 720.0
 

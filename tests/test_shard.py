@@ -6,11 +6,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from rays1bench_tpu.core.config import RenderConfig
-from rays1bench_tpu.parallel.mesh import make_mesh
-from rays1bench_tpu.parallel.shard import render_image_sharded
-from rays1bench_tpu.render.pipeline import render_image
-from rays1bench_tpu.scene.builders import create_small_scene
+from rays1bench.core.config import RenderConfig
+from rays1bench.parallel.mesh import make_mesh
+from rays1bench.parallel.shard import render_image_sharded
+from rays1bench.render.pipeline import render_image
+from rays1bench.scene.builders import create_small_scene
 
 CFG = RenderConfig(width=64, height=40, spp=2, max_bounces=6, ray_chunk=1024)
 
@@ -65,261 +65,140 @@ def test_high_spp_sample_sharding(scene_and_camera):
     assert int(n) == int(n_ref)
 
 
-def _pallas_single_ref(scene, camera, cfg, **kw):
-    """Single-device megakernel render in interpreter mode (CPU)."""
-    import functools
-    from rays1bench_tpu.kernels import pipeline as kp
-    origs = (kp.trace_pallas, kp.trace_pallas_wavefront)
-    kp._render_jit._clear_cache()
-    try:
-        kp.trace_pallas = functools.partial(origs[0], interpret=True)
-        kp.trace_pallas_wavefront = functools.partial(origs[1],
-                                                      interpret=True)
-        return kp.render_image_pallas(scene.spheres, camera, cfg,
-                                      n_real=scene.n_real, **kw)
-    finally:
-        kp.trace_pallas, kp.trace_pallas_wavefront = origs
-        kp._render_jit._clear_cache()
+def _pallas_single_ref(scene, camera, cfg):
+    """Single-device respawn-kernel render in the interpreter (CPU)."""
+    from rays1bench.kernels.pipeline import render_image_pallas
+    return render_image_pallas(scene.spheres, camera, cfg,
+                               n_real=scene.n_real, interpret=True)
 
 
 def test_pallas_sharded_matches_single_device(scene_and_camera):
-    """The production multi-chip path (megakernel under shard_map) is
-    bit-identical to the single-device megakernel render."""
-    from rays1bench_tpu.parallel.shard import render_image_pallas_sharded
+    """The multi-device path (the respawn kernel under shard_map) is
+    bit-identical to the single-device kernel render: whole pixels per
+    device, the same serial sample order per lane."""
+    from rays1bench.parallel.shard import render_image_pallas_sharded
 
     scene, camera = scene_and_camera
-    ref, n_ref = _pallas_single_ref(scene, camera, CFG,
-                                    tile_rays=1024, unroll=4)
+    ref, n_ref = _pallas_single_ref(scene, camera, CFG)
     for n_dev in (2, 8):
         img, n = render_image_pallas_sharded(
             scene.spheres, camera, CFG, make_mesh(n_dev),
-            tile_rays=1024, unroll=4, n_real=scene.n_real, interpret=True)
+            n_real=scene.n_real, interpret=True)
         assert int(n) == int(n_ref)
         assert (np.asarray(img) == np.asarray(ref)).all()
 
 
-def test_pallas_sharded_full_feature_surface(scene_and_camera):
-    """Every single-chip megakernel flag works under shard_map with a
-    bit-identical image (round-1 verdict item 7): wavefront compaction
-    schedules, sync_every, and their composition."""
-    from rays1bench_tpu.parallel.shard import render_image_pallas_sharded
+def test_pallas_sharded_untrimmed_scene(scene_and_camera):
+    """Without n_real the kernel sweeps the placeholder rows too (poisoned,
+    never hit): same rays and a bit-identical image, sharded or not."""
+    from rays1bench.kernels.pipeline import render_image_pallas
+    from rays1bench.parallel.shard import render_image_pallas_sharded
 
     scene, camera = scene_and_camera
-    cases = [
-        dict(wavefront=(2, 6)),
-        dict(cull="sort_trim", wavefront=(1, 2, 8)),
-        dict(cull="none", sync_every=2),
-    ]
-    for kw in cases:
-        ref, n_ref = _pallas_single_ref(scene, camera, CFG,
-                                        tile_rays=1024, unroll=4, **kw)
-        img, n = render_image_pallas_sharded(
-            scene.spheres, camera, CFG, make_mesh(4),
-            tile_rays=1024, unroll=4, n_real=scene.n_real, interpret=True,
-            **kw)
-        assert int(n) == int(n_ref), kw
-        assert (np.asarray(img) == np.asarray(ref)).all(), kw
+    ref, n_ref = _pallas_single_ref(scene, camera, CFG)
+    one, n_one = render_image_pallas(scene.spheres, camera, CFG,
+                                     interpret=True)
+    img, n = render_image_pallas_sharded(scene.spheres, camera, CFG,
+                                         make_mesh(4), interpret=True)
+    assert int(n) == int(n_one) == int(n_ref)
+    assert (np.asarray(img) == np.asarray(one)).all()
+    assert (np.asarray(one) == np.asarray(ref)).all()
 
 
 def test_pallas_sharded_respawn(scene_and_camera):
-    """The sample-respawn engine under shard_map: bitwise-identical to the
-    single-device respawn render on a tile-only mesh (whole pixels per
-    device, same serial sample order); exact ray counts and 1-ULP pixel
-    means on a 2-D (tiles, samples) mesh (sample slices sum partial pixel
-    totals in a different order)."""
-    import functools
-    from rays1bench_tpu.kernels import pipeline as kp
-    from rays1bench_tpu.parallel.mesh import make_mesh2d
-    from rays1bench_tpu.parallel.shard import render_image_pallas_sharded
+    """The sharded kernel against the XLA renderer (the plain reference)
+    at several device counts: identical per-ray trajectories, so the ray
+    counts are EXACT and pixels agree up to sample-summation order."""
+    from rays1bench.parallel.shard import render_image_pallas_sharded
 
     scene, camera = scene_and_camera
     cfg = CFG.replace(spp=4)
-    orig = kp.trace_pallas_respawn
-    kp._render_jit._clear_cache()
-    try:
-        kp.trace_pallas_respawn = functools.partial(orig, interpret=True)
-        ref, n_ref = kp.render_image_pallas(scene.spheres, camera, cfg,
-                                            tile_rays=1024, unroll=4,
-                                            n_real=scene.n_real, respawn=True)
-    finally:
-        kp.trace_pallas_respawn = orig
-        kp._render_jit._clear_cache()
-
-    for n_dev in (2, 8):
+    ref, n_ref = render_image(scene.spheres, camera, cfg)
+    for n_dev in (1, 3, 8):
         img, n = render_image_pallas_sharded(
-            scene.spheres, camera, cfg, make_mesh(n_dev), tile_rays=1024,
-            unroll=4, n_real=scene.n_real, interpret=True, respawn=True)
+            scene.spheres, camera, cfg, make_mesh(n_dev),
+            n_real=scene.n_real, interpret=True)
         assert int(n) == int(n_ref), n_dev
-        assert (np.asarray(img) == np.asarray(ref)).all(), n_dev
-
-    for n_tiles, n_samp in ((2, 4), (4, 2)):
-        mesh = make_mesh2d(n_tiles, n_samp)
-        img, n = render_image_pallas_sharded(
-            scene.spheres, camera, cfg, mesh, axis_name="tiles",
-            sample_axis="samples", tile_rays=1024, unroll=4,
-            n_real=scene.n_real, interpret=True, respawn=True)
-        assert int(n) == int(n_ref), (n_tiles, n_samp)
         np.testing.assert_allclose(np.asarray(img), np.asarray(ref),
-                                   atol=1e-7, err_msg=str((n_tiles, n_samp)))
+                                   atol=1e-6, err_msg=str(n_dev))
 
 
 def test_pallas_sharded_2d_mesh(scene_and_camera):
     """(tiles, samples) 2-D mesh factorizations (SURVEY.md §7.2-6) render
-    the same image: per-ray radiance is bitwise identical (stateless RNG on
-    global ray ids), ray counts are exact; the per-pixel spp mean is equal
-    to 1 ULP (XLA may reassociate the 4-sample reduction under the
-    transposed sample layout)."""
-    from rays1bench_tpu.parallel.mesh import make_mesh2d
-    from rays1bench_tpu.parallel.shard import render_image_pallas_sharded
+    the same image: per-ray radiance is identical (stateless RNG on global
+    ray ids), ray counts are exact; pixel means agree to float rounding
+    (sample slices are summed in another order), and bitwise when the
+    sample axis has size 1."""
+    from rays1bench.parallel.mesh import make_mesh2d
+    from rays1bench.parallel.shard import render_image_pallas_sharded
 
     scene, camera = scene_and_camera
     cfg = CFG.replace(spp=4)
-    ref, n_ref = _pallas_single_ref(scene, camera, cfg,
-                                    tile_rays=1024, unroll=4)
+    ref, n_ref = _pallas_single_ref(scene, camera, cfg)
     for n_tiles, n_samp in ((2, 4), (4, 2), (8, 1), (1, 4)):
         mesh = make_mesh2d(n_tiles, n_samp)
         img, n = render_image_pallas_sharded(
             scene.spheres, camera, cfg, mesh, axis_name="tiles",
-            sample_axis="samples", tile_rays=1024, unroll=4,
-            n_real=scene.n_real, interpret=True)
+            sample_axis="samples", n_real=scene.n_real, interpret=True)
         assert int(n) == int(n_ref), (n_tiles, n_samp)
         np.testing.assert_allclose(np.asarray(img), np.asarray(ref),
                                    atol=1e-7, err_msg=str((n_tiles, n_samp)))
-        if n_samp == 1:  # pure tile sharding keeps even the mean bitwise
+        if n_samp == 1:
             assert (np.asarray(img) == np.asarray(ref)).all(), (n_tiles,
                                                                 n_samp)
 
 
 def test_sharded_telemetry(scene_and_camera):
-    """telemetry=True on the sharded Pallas paths returns per-DEVICE ray
-    counts and kernel step counts (the SPMD analog of the reference's
-    per-thread ray counters, rayweek1.cpp:79-95, 809-813): counts sum to
-    the psum'd total, step counts are positive, and the image is unchanged
-    — on both the one-shot and respawn engines."""
-    from rays1bench_tpu.parallel.shard import render_image_pallas_sharded
+    """telemetry=True returns per-DEVICE ray counts and kernel step counts
+    (the SPMD analog of the reference's per-thread ray counters,
+    rayweek1.cpp:79-95, 809-813): counts sum to the psum'd total, busy
+    devices report steps, and the image is unchanged."""
+    from rays1bench.parallel.mesh import make_mesh2d
+    from rays1bench.parallel.shard import render_image_pallas_sharded
 
     scene, camera = scene_and_camera
     cfg = CFG.replace(width=48, height=24, max_bounces=4)
     mesh = make_mesh(4)
-    for respawn in (False, True):
-        base_img, base_n = render_image_pallas_sharded(
-            scene.spheres, camera, cfg, mesh, tile_rays=512, unroll=4,
-            n_real=scene.n_real, respawn=respawn, interpret=True)
-        img, n, telem = render_image_pallas_sharded(
-            scene.spheres, camera, cfg, mesh, tile_rays=512, unroll=4,
-            n_real=scene.n_real, respawn=respawn, interpret=True,
-            telemetry=True)
-        assert (np.asarray(img) == np.asarray(base_img)).all(), respawn
-        assert int(n) == int(base_n), respawn
-        rays = np.asarray(telem["device_rays"])
-        iters = np.asarray(telem["device_iters"])
-        assert rays.shape == (4,) and iters.shape == (4,), respawn
-        assert int(rays.sum()) == int(n), (respawn, rays, int(n))
-        # At this tiny config the round-up leaves the last device all
-        # padding — rays=0 — which is precisely the imbalance the
-        # telemetry exists to expose; busy devices still report steps.
-        assert (iters[rays > 0] > 0).all(), (respawn, iters, rays)
+    base_img, base_n = render_image_pallas_sharded(
+        scene.spheres, camera, cfg, mesh, n_real=scene.n_real,
+        interpret=True)
+    img, n, telem = render_image_pallas_sharded(
+        scene.spheres, camera, cfg, mesh, n_real=scene.n_real,
+        interpret=True, telemetry=True)
+    assert (np.asarray(img) == np.asarray(base_img)).all()
+    assert int(n) == int(base_n)
+    rays = np.asarray(telem["device_rays"])
+    iters = np.asarray(telem["device_iters"])
+    assert rays.shape == (4,) and iters.shape == (4,)
+    assert int(rays.sum()) == int(n), (rays, int(n))
+    assert (iters[rays > 0] > 0).all(), (iters, rays)
 
     # 2-D (tiles, samples) mesh: telemetry comes back mesh-shaped.
-    from rays1bench_tpu.parallel.mesh import make_mesh2d
-    mesh2d = make_mesh2d(2, 2)
     img2, n2, telem2 = render_image_pallas_sharded(
-        scene.spheres, camera, cfg, mesh2d, axis_name="tiles",
-        sample_axis="samples", tile_rays=512, unroll=4,
-        n_real=scene.n_real, interpret=True, telemetry=True)
+        scene.spheres, camera, cfg, make_mesh2d(2, 2), axis_name="tiles",
+        sample_axis="samples", n_real=scene.n_real, interpret=True,
+        telemetry=True)
     rays2 = np.asarray(telem2["device_rays"])
     assert rays2.shape == (2, 2)
     assert int(rays2.sum()) == int(n2) == int(n)
 
 
-def test_mega_grad_sharded_matches_single():
-    """Multi-chip fused gradients (grad/mega.render_image_mega_sharded):
-    the sharded megakernel-topology forward + fused Pallas backward under
-    shard_map produce the same loss (bitwise: identical per-ray math,
-    identical slot means) and the same gradients as the single-chip fused
-    path up to float summation order (per-device partial sums + the psum
-    tree for sphere columns; a differently-padded slot reduction for the
-    camera VJP)."""
-    import dataclasses
-    from rays1bench_tpu.grad.inverse import params_of, with_params
-    from rays1bench_tpu.grad.mega import (render_image_mega,
-                                          render_image_mega_sharded)
+def test_sharded_grad_matches_single():
+    """One sharded training step's loss and gradient (the XLA renderer
+    under shard_map, gradient reduced by the shard_map transpose's psum)
+    against the single-device ones."""
+    from rays1bench.grad.inverse import image_loss, params_of
 
-    # Small shapes + tile_rays=512 keep interpreter-mode cost down (the
-    # assertions are engine-invariance properties, independent of scale:
-    # this test was 149 s of the round-4 suite's 976 at 64x40 x 8 devices).
-    cfg = CFG.replace(width=48, height=24, max_bounces=4, seed=7,
-                      early_exit=False)
-    # Tightly padded scene: small fits the fused backward's unrolled
-    # accumulator path (<= kernels/mega_backward.MAX_UNROLLED rows).
-    scene = create_small_scene(cfg.aspect, pad_multiple=8)
+    cfg = CFG.replace(width=32, height=16, max_bounces=3, early_exit=False)
+    scene = create_small_scene(cfg.aspect)
     camera = scene.camera.build()
-    mesh = make_mesh(4)
-    names = ("center_x", "radius", "albedo_x", "fuzz")
-    params = params_of(scene.spheres, names)
-
-    def loss(p, cam, sharded):
-        sph = with_params(scene.spheres, p)
-        if sharded:
-            img, _ = render_image_mega_sharded(sph, cam, cfg, mesh,
-                                               tile_rays=512, interpret=True)
-        else:
-            img, _ = render_image_mega(sph, cam, cfg, tile_rays=512,
-                                       interpret=True)
-        return jnp.mean((img - 0.3) ** 2)
-
-    # value_and_grad: loss AND gradients from ONE trace per engine (the
-    # interpret-mode Pallas tracing is this test's entire cost; separate
-    # loss + grad calls would double it).
-    l1, g1 = jax.value_and_grad(loss, argnums=(0, 1))(params, camera, False)
-    l2, g2 = jax.value_and_grad(loss, argnums=(0, 1))(params, camera, True)
-    assert float(l1) == float(l2), (l1, l2)
-    for k in names:
-        a, b = np.asarray(g2[0][k]), np.asarray(g1[0][k])
-        rel = np.abs(a - b).max() / (np.abs(b).max() + 1e-12)
-        assert rel < 1e-4, (k, rel)
-    for f in dataclasses.fields(camera):
-        a = np.asarray(getattr(g2[1], f.name))
-        b = np.asarray(getattr(g1[1], f.name))
-        rel = np.abs(a - b).max() / (np.abs(b).max() + 1e-12)
-        assert rel < 1e-3, (f.name, rel)
-
-
-def test_mega_grad_sharded_soft():
-    """Multi-chip SOFT gradients: the sharded fused path with
-    cfg.soft_silhouette runs the in-kernel two-branch estimator per device
-    and matches the single-chip soft fused gradient to float summation
-    order — silhouette fitting composes with SPMD sharding."""
-    from rays1bench_tpu.grad.inverse import params_of, with_params
-    from rays1bench_tpu.grad.mega import (render_image_mega,
-                                          render_image_mega_sharded)
-
-    # Small shapes for interpreter-mode cost (was 161 s of the round-4
-    # suite); the soft-estimator invariance asserted is scale-free.
-    cfg = CFG.replace(width=48, height=24, max_bounces=3, seed=7,
-                      early_exit=False, soft_silhouette=0.005)
-    scene = create_small_scene(cfg.aspect, pad_multiple=8)
-    camera = scene.camera.build()
-    mesh = make_mesh(4)
-    names = ("center_x", "center_y", "radius")
-    params = params_of(scene.spheres, names)
-    params["center_x"] = params["center_x"].at[0].add(0.04)
-
-    def loss(p, sharded):
-        sph = with_params(scene.spheres, p)
-        if sharded:
-            img, _ = render_image_mega_sharded(sph, camera, cfg, mesh,
-                                               tile_rays=512, interpret=True)
-        else:
-            img, _ = render_image_mega(sph, camera, cfg, tile_rays=512,
-                                       interpret=True)
-        return jnp.mean((img - 0.3) ** 2)
-
-    # One trace per engine (see test_mega_grad_sharded_matches_single).
-    l1, g1 = jax.value_and_grad(loss)(params, False)
-    l2, g2 = jax.value_and_grad(loss)(params, True)
-    assert float(l1) == float(l2)
-    for k in names:
-        a, b = np.asarray(g2[k]), np.asarray(g1[k])
-        rel = np.abs(a - b).max() / (np.abs(b).max() + 1e-12)
-        assert rel < 1e-4, (k, rel)
+    params = params_of(scene.spheres, ("center_y", "radius", "albedo_x"))
+    target = jnp.zeros((cfg.height, cfg.width, 3), jnp.float32)
+    l1, g1 = jax.value_and_grad(image_loss)(params, scene.spheres, camera,
+                                            target, cfg)
+    l4, g4 = jax.value_and_grad(image_loss)(params, scene.spheres, camera,
+                                            target, cfg, make_mesh(4))
+    np.testing.assert_allclose(float(l4), float(l1), rtol=1e-6)
+    for k in g1:
+        np.testing.assert_allclose(np.asarray(g4[k]), np.asarray(g1[k]),
+                                   rtol=1e-5, atol=1e-9, err_msg=k)

@@ -11,8 +11,8 @@ import sys
 
 import numpy as np
 
-from rays1bench_tpu.scene.soa_spheres import SphereSOA, SphereSOABuilder
-from rays1bench_tpu.scene.spheres import prepare, LAMBERTIAN
+from rays1bench.scene.soa_spheres import SphereSOA, SphereSOABuilder
+from rays1bench.scene.spheres import prepare, LAMBERTIAN
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -65,7 +65,7 @@ def test_prepare_derived_columns():
 
 def test_codegen_idempotent():
     """Re-running the spec reproduces the checked-in generated module."""
-    gen_path = os.path.join(REPO, "rays1bench_tpu", "scene", "soa_spheres.py")
+    gen_path = os.path.join(REPO, "rays1bench", "scene", "soa_spheres.py")
     with open(gen_path) as f:
         before = f.read()
     subprocess.run([sys.executable, os.path.join(REPO, "tools", "soa_spheres_spec.py")],

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from rays1bench_tpu.scene import tga
+from rays1bench.scene import tga
 
 
 def test_roundtrip(tmp_path):

@@ -6,7 +6,7 @@ into per-property columns — from a property list, via a template generator
 src/*/soa_generator_config.py). The generated container is the backbone of its
 AoS→SoA optimization steps.
 
-This is the TPU-native counterpart: from a column spec it emits a Python module
+This is the JAX counterpart: from a column spec it emits a Python module
 containing
   * a frozen dataclass registered as a JAX pytree — columns are device arrays,
     so the container flows through jit/vmap/grad/shard_map as data,
@@ -37,7 +37,7 @@ class Column:
 class SoaSpec:
     class_name: str               # e.g. "SphereSOA"
     columns: List[Column]
-    # Pad row count up to a multiple of this (TPU lane width).
+    # Pad row count up to a multiple of this (keeps column shapes in a few buckets).
     pad_multiple: int = 128
     # Column whose padding default marks a row as placeholder.
     mask_col: Optional[str] = None

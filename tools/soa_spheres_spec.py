@@ -1,6 +1,6 @@
 """Column spec for the sphere SoA container.
 
-The TPU analog of the reference's per-step soa_generator_config.py
+The analog of the reference's per-step soa_generator_config.py
 (src/latest/soa_generator_config.py declares center_x/y/z, radius_sq,
 inv_radius, Material*). Differences, by design:
 
@@ -49,10 +49,10 @@ SPEC = SoaSpec(
     doc="""
 Sphere scene storage: centers, signed radii, and flattened material columns.
 The device-side derived view (radius_sq, inv_radius, validity mask) is built
-by rays1bench_tpu.scene.spheres.prepare().""",
+by rays1bench.scene.spheres.prepare().""",
 )
 
 if __name__ == "__main__":
     out = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir,
-                       "rays1bench_tpu", "scene", "soa_spheres.py")
+                       "rays1bench", "scene", "soa_spheres.py")
     write(SPEC, "tools/soa_spheres_spec.py", os.path.normpath(out))

@@ -2,7 +2,8 @@
 """Full-resolution golden verification (SURVEY.md §7.1(c)).
 
 Renders each scene at the reference's full 1280x720 resolution, max 50
-bounces, on the real TPU (megakernel path) and compares block means of the
+bounces, with the respawn kernel on the GPU (core/route.require_gpu) and
+compares block means of the
 quantized u8 image against the reference binary's own full-workload TGA
 output (tests/golden/*_full_*.tga, 250 spp — see tests/golden/README.md):
 
@@ -22,16 +23,9 @@ any systematic shading/geometry error. At the default 128 spp the expected
 per-block-mean noise between two independent renders is ~0.3/255, so the
 1.25/255 mean / 3.5/255 max tolerances are dominated by real signal.
 
-Measured 2026-08-19 (PARITY.md): means 0.04-0.19/255 — far under tolerance.
-The per-scene maxima (2.1 / 2.4 / 1.5 / 3.0) are isolated glass-caustic
-blocks: the worst (large, block 13,17) is a sub-pixel refracted feature
-seen THROUGH a glass sphere, where one f32 ulp in the refracted direction
-moves the feature by pixels. Attribution evidence: our exact float-albedo
-XLA path and the megakernel agree there to 0.04/255 at 512 spp, and two
-independent reference runs agree with each other (run-to-run max 1.06/255)
-— i.e. both renderers are internally deterministic and the gap is
-compiler-level float math (-ffast-math -march=native) amplified by a
-chaotic light path, not a shading/geometry bug.
+The isolated worst blocks are glass caustics: a sub-pixel refracted feature
+seen through a glass sphere, where one f32 ulp in the refracted direction
+moves the feature by pixels (PARITY.md).
 
 Usage: python tools/verify_golden.py [--scenes small,medium,large]
        [--spp 128] [--block 16] [--tol-mean 1.25] [--tol-max 3.5]
@@ -64,19 +58,17 @@ def main():
     ap.add_argument("--tol-max", type=float, default=3.5)
     ap.add_argument("--save", action="store_true",
                     help="write our renders to out_full_<scene>.tga")
-    ap.add_argument("--respawn", action="store_true",
-                    help="render through the persistent-lane sample-respawn "
-                         "engine (the production default) instead of the "
-                         "one-shot megakernel")
     args = ap.parse_args()
 
-    from rays1bench_tpu.core.cache import enable
+    from rays1bench.core import route
+    route.require_gpu("verify_golden.py")
+    from rays1bench.core.cache import enable
     enable()
     import numpy as np
-    from rays1bench_tpu.core.config import RenderConfig
-    from rays1bench_tpu.kernels.pipeline import render_image_pallas
-    from rays1bench_tpu.render.pipeline import to_srgb_u8
-    from rays1bench_tpu.scene import builders, tga
+    from rays1bench.core.config import RenderConfig
+    from rays1bench.kernels.pipeline import render_image_pallas
+    from rays1bench.render.pipeline import to_srgb_u8
+    from rays1bench.scene import builders, tga
 
     cfg = RenderConfig(width=1280, height=720, spp=args.spp, max_bounces=50)
     rows = []
@@ -108,8 +100,7 @@ def main():
     for name in args.scenes.split(","):
         scene = builders.SCENES[name](cfg.aspect)
         img, _ = render_image_pallas(scene.spheres, scene.camera.build(),
-                                     cfg, n_real=scene.n_real,
-                                     respawn=args.respawn)
+                                     cfg, n_real=scene.n_real)
         ours = np.asarray(to_srgb_u8(img)).astype(np.float64)
         if args.save:
             tga.write_rgb24(f"out_full_{name}.tga", np.asarray(
